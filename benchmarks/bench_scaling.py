@@ -1,11 +1,12 @@
 """Multi-device scaling benchmark for the sharded channelized receiver.
 
-On a real multi-chip slice this measures the ≥80% scaling-efficiency target
-(BASELINE.md).  On a single-chip/virtual-CPU environment it still validates
-the sharded program end to end and reports per-mesh throughput (CPU numbers
-measure program structure, not ICI).
+On a host with several GPUs (four H100s over NVLink) this measures the
+≥80% scaling-efficiency target (BASELINE.md) over 1, 2, 4 ... cards, each
+timed window ending in `block_until_ready`.  `--virtual` runs the same
+program on virtual CPU devices instead, which checks the sharded program end
+to end but measures program structure, not a device.
 
-Usage: python benchmarks/bench_scaling.py [max_devices]
+Usage: python benchmarks/bench_scaling.py [max_devices] [--virtual]
 """
 
 import json
@@ -21,13 +22,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
 
-    want = int(sys.argv[1]) if len(sys.argv) > 1 else 8
-    if len(jax.devices()) < want:
-        import jax.extend.backend
+    import bench
 
-        jax.extend.backend.clear_backends()
+    args = [a for a in sys.argv[1:] if a != "--virtual"]
+    want = int(args[0]) if args else 4
+    if "--virtual" in sys.argv:
         jax.config.update("jax_num_cpu_devices", want)
         jax.config.update("jax_platforms", "cpu")
+    else:
+        bench.require_gpu()
 
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -64,7 +67,7 @@ def main():
 
     print(json.dumps({
         "metric": "sharded_pfb64_fm_scaling",
-        "platform": jax.default_backend(),
+        "device": bench.device_info(),
         "results": results,
     }))
 

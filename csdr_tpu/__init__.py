@@ -1,11 +1,11 @@
-"""csdr_tpu — a TPU-native software-defined-radio DSP framework.
+"""csdr_tpu — a JAX software-defined-radio DSP framework.
 
 Brand-new implementation of the capabilities of composable-sdr
 (github.com/mryndzionek/composable-sdr): composable streaming DSP blocks
 (polyphase channelizer, arbitrary resampler, FIR/IIR filters, FM/AM/FSK/GMSK
 demodulators, AGC+squelch, NCO mixers, stereo FM, symbol sync) expressed as
 pure (state, block) → (state, block) JAX transforms, compiled into one jitted
-graph, and sharded over TPU meshes.
+graph, and sharded over device meshes.
 
 This module is the umbrella re-export (reference:
 /root/reference/src/ComposableSDR.hs).
@@ -15,11 +15,11 @@ import os as _os
 
 import jax as _jax
 
-# TPU matmuls default to bf16-truncated operands — fine for neural nets,
-# a silent ~−52 dB error floor for DSP (measured 2.3e-3 rel err in the FIR
-# and DFT kernels vs 1e-7 at full f32).  A signal-processing framework wants
-# full float32 passes by default; override with CSDR_MATMUL_PRECISION=
-# default|high|highest for experiments.
+# Accelerator matmuls may default to reduced-precision operands (TF32 on the
+# GPU's tensor cores, bf16 elsewhere) — fine for neural nets, a silent error
+# floor for DSP.  A signal-processing framework wants full float32 passes by
+# default; override with CSDR_MATMUL_PRECISION=default|high|highest for
+# experiments.
 _jax.config.update("jax_default_matmul_precision",
                    _os.environ.get("CSDR_MATMUL_PRECISION", "highest"))
 

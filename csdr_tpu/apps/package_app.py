@@ -2,10 +2,10 @@
 
 The reference ships `cabal2appimage` (/root/reference/apps/Cabal2AppImage.hs):
 walk the ldd closure of the built binaries, prune a system-library exclude
-list, bundle SoapySDR driver modules, emit an AppImage.  The Python/TPU
+list, bundle SoapySDR driver modules, emit an AppImage.  The Python/JAX
 equivalent: build a zipapp (.pyz) of the framework + CLI entry points, bundle
 the native IO library plus its pruned ldd closure, and emit a directory with
-a launcher — one artifact deployable to any pod worker with a matching
+a launcher — one artifact deployable to any GPU host with a matching
 python/jax install.
 """
 
@@ -70,9 +70,21 @@ def ldd_closure(binary: str) -> list[str]:
 
 # the framework's actual runtime dependency closure (the host venv may carry
 # unrelated heavyweights — torch, transformers — that a deployed receiver
-# never imports)
-_RUNTIME_DEPS = ("jax", "jaxlib", "numpy", "scipy", "ml_dtypes", "opt_einsum",
-                 "libtpu")
+# never imports).  The CUDA entries are JAX's GPU plugin and the pip CUDA
+# libraries it loads; without them a bundled receiver falls back to the CPU.
+# A trailing "*" matches every package whose name starts with the prefix.
+_CUDA_DEPS = ("jax_cuda*", "jax_plugins", "nvidia*")
+_RUNTIME_DEPS = ("jax", "jaxlib", "numpy", "scipy", "ml_dtypes",
+                 "opt_einsum") + _CUDA_DEPS
+
+
+def _wanted(entry: str, deps: tuple) -> bool:
+    """Does site-packages ``entry`` (package dir, module or dist-info)
+    belong to one of ``deps``?"""
+    stem = entry.split("-")[0].split(".")[0].lower()
+    return any(stem == d or entry.lower() == d
+               or (d.endswith("*") and stem.startswith(d[:-1]))
+               for d in deps)
 
 
 def bundle_runtime(out_dir: str, deps: tuple = _RUNTIME_DEPS) -> None:
@@ -112,8 +124,7 @@ def bundle_runtime(out_dir: str, deps: tuple = _RUNTIME_DEPS) -> None:
         if not os.path.isdir(sp):
             continue
         for entry in os.listdir(sp):
-            stem = entry.split("-")[0].split(".")[0].lower()
-            if stem not in deps and entry.lower() not in deps:
+            if not _wanted(entry, deps):
                 continue
             srcp = os.path.join(sp, entry)
             dstp = os.path.join(dst_sp, entry)
@@ -132,8 +143,9 @@ def build_bundle(out_dir: str, repo_root: str | None = None,
                  self_contained: bool = False,
                  runtime_deps: tuple = _RUNTIME_DEPS) -> str:
     """``runtime_deps`` narrows the bundled site-packages closure — the
-    CPU-only smoke test drops libtpu (637 MB) to keep the env -i launch test
-    fast; production bundles ship the full default closure."""
+    CPU-only smoke test drops the CUDA packages (gigabytes of libraries) to
+    keep the env -i launch test fast; production bundles ship the full
+    default closure."""
     root = repo_root or os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     os.makedirs(out_dir, exist_ok=True)
     staging = os.path.join(out_dir, "_staging")

@@ -1,4 +1,4 @@
-"""soapy-sdr — the reference CLI re-implemented on the TPU runtime.
+"""soapy-sdr — the reference CLI re-implemented on the JAX runtime.
 
 Drop-in flag surface of /root/reference/apps/SoapySDR.hs:60-143, including the
 Haskell-`Read`-style --demod strings:
@@ -31,7 +31,7 @@ __all__ = ["main", "build_parser", "run_opts"]
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="soapy-sdr",
-        description="Process samples from an SDR (or IQ/WAV file) — TPU-native",
+        description="Process samples from an SDR (or IQ/WAV file) on an accelerator",
     )
     p.add_argument("--filename", metavar="NAME", help="Input (CF32) file name")
     p.add_argument("--chunksize", type=int, default=1024, metavar="INT",
@@ -92,11 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--mix", action="store_true",
                    help="Mix the channels into one output instead of per-channel files")
     p.add_argument("--blocksize", type=int, default=1 << 20,
-                   help="Device block size in samples (TPU-side; not in the reference)")
-    p.add_argument("--backend", default="xla",
-                   choices=["xla", "pallas", "pallas_full"],
-                   help="Kernel backend for the channelized FM path "
-                        "(-c N + DeNBFM): fused Pallas kernels or pure XLA")
+                   help="Device block size in samples (not in the reference)")
     p.add_argument("--profile", action="store_true",
                    help="Per-block profiling: run each stage as its own "
                         "device step and print a time-budget table "
@@ -104,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default=None, metavar="TxC",
                    help="Run the flow on a device mesh, e.g. '4x2' = 4 "
                         "time-shards x 2 channel-shards.  Every demod flow "
-                        "shards (channelized FM uses the fused fast path); "
+                        "shards (channelized FM uses the hand-sharded "
+                        "receiver); "
                         "per-sample scan modes refuse with a clear message")
     return p
 
@@ -267,7 +264,7 @@ def run_opts(opts) -> int:
         stream = _tapped(stream, taps)
 
     if opts.mesh and demod[0] == "DeNBFM" and nch > 1 and not opts.mix:
-        # flagship fast path: the hand-fused sharded channelized FM receiver
+        # flagship: the hand-sharded channelized FM receiver
         return _run_sharded(opts, demod, stream, out_bw, agc_t)
 
     agc_blocks = [B.automatic_gain_control(agc_t)] if agc_t else []
@@ -499,22 +496,6 @@ def run_opts(opts) -> int:
         return _run_sharded_generic(opts, kind, per, make_sink, stream,
                                     out_sink=out_sink)
 
-    if (nch > 1 and kind == "DeNBFM" and opts.backend != "xla"
-            and not agc_blocks and not opts.mix):
-        # fused-kernel fast path for the flagship flow
-        from ..models.receivers import channelized_fm_receiver
-        graph = channelized_fm_receiver(nch, kf=demod[1], backend=opts.backend)
-        _announce("Flow", graph, opts)
-        pipe = Pipeline(graph, block_size=opts.blocksize)
-        sink = S.ChannelFileSinks(
-            lambda i: make_sink(f"{opts.output}_ch{i + 1}"), nch)
-        t0 = time.perf_counter()
-        with sink:
-            total = pipe.run(stream, sink)
-        _summary(total, time.perf_counter() - t0, opts)
-        print(f"Wrote {total} output samples per stream ({opts.backend})")
-        return 0
-
     stages = [B.dc_blocker()]
     if nch > 1:
         stages.append(B.firpfbch_channelizer(nch))
@@ -631,46 +612,18 @@ def _run_sharded_generic(opts, kind, per, make_sink, stream,
 def _run_sharded(opts, demod, stream, out_bw, agc_t) -> int:
     """Multi-device channelized FM receive over a Mesh('time','ch')
     (parallel/channelized.py) — the reference has no equivalent."""
-    import numpy as np
-    import jax
-    from jax.sharding import Mesh
     from ..parallel.channelized import ShardedChannelizedFM
     from ..parallel.runner import ShardedPipeline
 
-    if demod[0] != "DeNBFM" or opts.channels < 2:
-        print("--mesh requires -c N (>1) and --demod 'DeNBFM kf <fmt>'")
-        return 1
     _, kf, fmt = demod
-    dt, dc = (int(v) for v in opts.mesh.lower().split("x"))
-    devs = jax.devices()
-    if dt * dc > len(devs):
-        print(f"mesh {opts.mesh} needs {dt*dc} devices, have {len(devs)}")
+    mesh = _mesh_of(opts)
+    if mesh is None:
         return 1
+    dt, dc = mesh.devices.shape
     nch = opts.channels
-    if dc == 1 and agc_t is None and 64 % nch == 0:
-        # PRODUCTION path (round 5): pure time-sharding of the fused wide
-        # flagship kernel — the single-chip headline kernel per device
-        # (parallel/flagship.ShardedFlagship).  The channel-axis /
-        # AGC-bearing flows stay on ShardedChannelizedFM below.
-        from ..parallel.flagship import ShardedFlagship
-        from ..blocks.pallas_blocks import _interp_default
-        from ..utils import autotune
-
-        mesh = Mesh(np.asarray(devs[:dt]), ("time",))
-        # largest autotuned-or-smaller tile whose mesh granule fits the
-        # requested block size (halve down, floor 128)
-        tileF = autotune.lookup("flagship_fused_wide", nch)
-        while tileF > 128 and dt * nch * tileF > opts.blocksize:
-            tileF //= 2
-        gran = dt * nch * tileF
-        block = max(opts.blocksize // gran, 1) * gran
-        sh = ShardedFlagship(mesh, nch=nch, block_size=block, kf=kf,
-                             tileF=tileF, interpret=_interp_default(False))
-    else:
-        mesh = Mesh(np.asarray(devs[:dt * dc]).reshape(dt, dc), ("time", "ch"))
-        block = max(opts.blocksize // (dt * nch), 64) * dt * nch
-        sh = ShardedChannelizedFM(mesh=mesh, nch=nch, block_size=block, kf=kf,
-                                  agc_threshold_db=agc_t)
+    block = max(opts.blocksize // (dt * nch), 64) * dt * nch
+    sh = ShardedChannelizedFM(mesh=mesh, nch=nch, block_size=block, kf=kf,
+                              agc_threshold_db=agc_t)
     sink = S.ChannelFileSinks(
         lambda i: S.AudioFileSink(f"{opts.output}_ch{i + 1}",
                                   int(round(out_bw)) // nch, 1, fmt.lower()),
@@ -683,7 +636,10 @@ def _run_sharded(opts, demod, stream, out_bw, agc_t) -> int:
 
 
 def main(argv=None) -> int:
+    from ..utils.compile_cache import enable_compile_cache
+
     opts = build_parser().parse_args(argv)
+    enable_compile_cache()
     return run_opts(opts)
 
 

@@ -5,7 +5,7 @@ Reference: gmskDemodulator m k bw wrapping liquid gmskdem — k samples in per
 (/root/reference/src/ComposableSDR/Liquid.chs:384-429; throws unless the block
 is divisible by k, :421 — our granule mechanism enforces the same statically).
 
-TPU structure: FM discriminator (elementwise) → GMSK receive matched filter
+Structure: FM discriminator (elementwise) → GMSK receive matched filter
 (ops/fir) → strided symbol sampling at the matched-filter peak → sign slicer.
 No per-symbol loop.
 """

@@ -1,11 +1,11 @@
-"""The Block protocol — TPU-native replacement for the reference's `Pipe`.
+"""The Block protocol — accelerator-native replacement for the reference's `Pipe`.
 
 Reference design: `Pipe m a b = {start :: m r, process :: r -> a -> m b,
 done :: r -> m ()}` composed via a Category instance
 (/root/reference/src/ComposableSDR/Types.hs:51-103) — opaque C state mutated
 per chunk.
 
-TPU design: a Block is static config + two pure functions over explicit state
+Design: a Block is static config + two pure functions over explicit state
 pytrees:
 
     init()            -> state            (a pytree of jnp arrays)
@@ -88,7 +88,7 @@ class Block:
         carried scalars/tails), "ch" = leading axis sharded over the channel
         mesh axis (PerChannel's stacked per-channel states — avoids
         all-gathering O(nch·state) every step).  Uses eval_shape so no
-        arrays are created (TPU-backend safe)."""
+        arrays are created (cheap, no device work)."""
         return jax.tree.map(lambda _: "rep", jax.eval_shape(self.shard_init))
 
     def shard_apply(self, state, x, ctx):
@@ -524,7 +524,7 @@ class Tee(Block):
 
 
 class PerChannel(Block):
-    """vmap a block over a leading channel axis: the TPU-native version of the
+    """vmap a block over a leading channel axis: the device-native version of the
     reference's per-channel fan-out (`mux`/`distribute_`,
     Trans.hs:106-129) — channels are a tensor axis, not a Haskell list."""
 
@@ -615,7 +615,7 @@ class MixChannels(Block):
     def shard_apply(self, state, x, ctx):
         y = jnp.sum(x, axis=0)
         if ctx.dc > 1:
-            y = jax.lax.psum(y, ctx.ch_axis)  # partial channel sums over ICI
+            y = jax.lax.psum(y, ctx.ch_axis)  # partial channel sums across the mesh
         return state, y
 
     def shard_validate(self, nloc, ctx):

@@ -56,8 +56,8 @@ def load_state(path: str, like_state, *, signature: str = ""):
         for i, ref in enumerate(leaves):
             arr = z[f"leaf_{i}"]
             # validate against .shape/.dtype attributes — NO np.asarray(ref):
-            # materializing a complex device leaf to host is a raw complex
-            # transfer (UNIMPLEMENTED on this TPU backend, CLAUDE.md rule 2)
+            # materializing a device leaf to host would copy it just to
+            # read its metadata
             ref_shape = tuple(getattr(ref, "shape", np.shape(ref)))
             ref_dtype = np.dtype(getattr(ref, "dtype", np.asarray(ref).dtype))
             if arr.shape != ref_shape or arr.dtype != ref_dtype:
@@ -76,9 +76,8 @@ def save_pipeline(path: str, pipeline, position: int):
 def resume_pipeline(path: str, pipeline) -> int:
     """Restore a Pipeline's state; returns the stream position (input samples
     already consumed) so the caller can seek its source."""
-    # pipelines hold encoded state; use the Pipeline's JITTED init — eager
-    # block.init() creates complex arrays outside jit, which wedges the TPU
-    # backend (CLAUDE.md rule 1)
+    # pipelines hold encoded state; the Pipeline's jitted init gives the
+    # encoded structure to validate against
     like = pipeline._init()
     state, position = load_state(path, like, signature=pipeline.block.name)
     pipeline.state = jax.tree.map(lambda x: x, state)

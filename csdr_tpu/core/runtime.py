@@ -5,7 +5,7 @@ Reference equivalent: the Streamly fold driver `runFold = S.fold fdl (prep src)`
 `compact` and `takeNArr` (Trans.hs:33-84).  Differences by design:
 
   * blocks are LARGE (default 2^20 samples) so each device step amortises
-    dispatch and fills the TPU;
+    dispatch and fills the accelerator;
   * the graph step is one jit-compiled function with donated state (no
     per-block allocation churn);
   * re-blocking ("compact") and the exact-N trim ("takeNArr") happen host-side
@@ -42,12 +42,12 @@ def _join_complex(f):
 
 
 def to_host(a) -> np.ndarray:
-    """Device→host transfer that never moves complex64 over the wire.
+    """Device→host transfer that moves complex64 as float32 (re, im) pairs.
 
-    This environment's TPU backend raises UNIMPLEMENTED on complex64
-    transfers — and a single failed complex transfer poisons every later
-    transfer in the process.  Complex arrays are therefore split to float32
-    (re, im) pairs on device and recombined host-side.
+    Complex arrays are split on device and recombined host-side, the same
+    complex-free encoding as CEnc (the first accelerator backend could not
+    transfer complex64; whether the split still earns its place on the GPU
+    is an open design debt).
     """
     if isinstance(a, np.ndarray):
         return a
@@ -71,11 +71,11 @@ def to_device(x, device=None):
 class CEnc(NamedTuple):
     """Marker node: a complex array encoded as float32 (…, 2) re/im planes.
 
-    On this TPU backend, *executing* a jitted program that takes small complex
-    arrays as parameters leaves the runtime in a state where subsequent
-    host↔device transfers fail (UNIMPLEMENTED) — so the Pipeline keeps its
-    whole jit boundary complex-free: complex state/input/output leaves cross
-    as CEnc-wrapped float planes and are joined/split *inside* the program.
+    The Pipeline keeps its whole jit boundary complex-free: complex
+    state/input/output leaves cross as CEnc-wrapped float planes and are
+    joined/split *inside* the program.  The encoding dates from a backend that
+    could not pass complex arrays across the jit boundary; the GPU can, so
+    it is kept only until its removal is measured.
     """
 
     ri: object
@@ -239,9 +239,8 @@ class Pipeline:
                                 for b in self._stages]
         else:
             self._step = jax.jit(step, donate_argnums=(0,) if donate else ())
-        # jit the init+encode: eager ops that *create* complex arrays fail on
-        # this TPU backend, while compiled programs with complex internals
-        # are fine (docs/TPU_BACKEND_NOTES.md)
+        # init+encode run as one jitted program, so the initial state is
+        # created on the device already encoded
         self._init = jax.jit(lambda: encode_tree(block.init()))
         self.state = self._place(self._init())
 

@@ -1,7 +1,7 @@
 """Sharding-aware Block execution — the generic multi-chip protocol.
 
 The reference's defining property is that *any* composition of Pipes works
-(/root/reference/src/ComposableSDR/Types.hs:93-103).  The TPU build's
+(/root/reference/src/ComposableSDR/Types.hs:93-103).  This build's
 equivalent: any composition of Blocks *shards*.  Every Block may implement
 
     shard_apply(state, x_local, ctx) -> (new_state, y_local)
@@ -25,7 +25,7 @@ collective helpers on :class:`ShardCtx`:
 Carried state is replicated across the mesh (PartitionSpec ()); data flows
 time-sharded P('time') as 1-D streams and, after a channelizer, P('ch','time')
 as (nch, frames) panels.  ``shard_validate`` walks a graph statically (no
-jnp ops — safe on the quirky TPU backend, docs/TPU_BACKEND_NOTES.md) checking
+jnp ops) checking
 halo/granule divisibility and propagating the layout used to build the
 shard_map out_specs.
 
@@ -175,7 +175,7 @@ class ShardCtx:
 
         Math (the multi-device layer of ops/linrec's blocked algorithm):
         every device solves locally with zero carry (w), the per-device end
-        values w_end are all-gathered (dt scalars over ICI), and device i's
+        values w_end are all-gathered (dt scalars), and device i's
         true incoming carry is reconstructed in closed form:
 
             y_in[i] = a^(i·nloc)·carry0 + Σ_{j<i} a^(nloc·(i−1−j))·w_end[j]

@@ -3,7 +3,7 @@
 The reference's primary mode is live SoapySDR hardware
 (/root/reference/src/ComposableSDR/Source.chs:193-233: setupStream/activate,
 CF32, MTU-sized blocking reads, 1 s timeout → graceful end-of-stream).  Radio
-hardware cannot exist in a TPU pod, but the rtl_tcp protocol (shipped with
+hardware cannot exist on a data-centre host, but the rtl_tcp protocol (shipped with
 librtlsdr; also spoken by SDR# / SoapyRemote bridges) lets a host with the
 radio stream IQ over TCP.  This driver implements the client side:
 
@@ -71,7 +71,7 @@ class RtlTcpSource(SdrSource):
 
     ``raw_u8=True`` yields the wire's interleaved uint8 pairs instead of
     complex64 — feed those through blocks.u8_to_iq so the host→device wire
-    carries 2 bytes/sample instead of 8 (conversion on the TPU).
+    carries 2 bytes/sample instead of 8 (conversion on the device).
 
     ``reconnect=N`` (or ``$CSDR_RTLTCP_RECONNECT``) re-dials up to N times
     after an unexpected disconnect/timeout, replaying the tuner config on
@@ -249,7 +249,7 @@ class RtlTcpServer:
     """Serve IQ as an rtl_tcp server — the outbound half of the network
     story (the class above is the client).  Any chunk iterator (file source,
     synthetic device, a processed stream) becomes consumable by standard
-    rtl_tcp clients (gqrx, SDR#, rtl_fm, or RtlTcpSource itself), so a TPU
+    rtl_tcp clients (gqrx, SDR#, rtl_fm, or RtlTcpSource itself), so an accelerator
     pipeline can feed radio tooling elsewhere on the network.
 
     ``make_source()`` is called once per client connection and must return

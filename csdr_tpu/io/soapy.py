@@ -9,7 +9,7 @@ stream with 30 buffers, and read MTU-sized chunks with a 1 s timeout
 where a timeout/error ends the stream gracefully (Source.chs:226-233).
 
 The Python ``SoapySDR`` module is NOT part of this environment (real
-SoapySDR hardware does not exist in a TPU pod), so everything is lazily
+SoapySDR hardware does not exist on a data-centre host), so everything is lazily
 imported and registry-gated: importing this module is always safe, and
 ``register_if_available()`` only adds drivers when ``import SoapySDR``
 succeeds (e.g. a deployment box with SoapySDR-remote talking to antenna

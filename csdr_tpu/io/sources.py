@@ -7,7 +7,7 @@ native C++ double-buffered file reader (native/csdr_io.cpp) is used when built,
 with a numpy fallback.
 
 The SDR-device source is a pluggable interface: real SoapySDR hardware does
-not exist in a TPU pod, so `SdrSource` defines the protocol (open/read/close,
+not exist on a data-centre host, so `SdrSource` defines the protocol (open/read/close,
 MTU-sized reads, CF32) and `SyntheticSdrSource` provides a deterministic
 stand-in used by tests and demos.  A SoapySDR-backed implementation can
 register via `register_sdr_driver`.
@@ -111,10 +111,9 @@ def wav_iq_source(path: str, chunk_size: int = _CHUNK) -> Iterator[np.ndarray]:
     if data.ndim != 1:
         raise ValueError("wav_iq_source: only mono WAV supported (like the reference)")
     blk = chain(real_to_complex(), mix_up(np.pi))
-    # run through the jitted Pipeline, NOT eager blk.apply: eager complex
-    # creation / raw complex transfers wedge the TPU backend (CLAUDE.md
-    # rules 1-2) — Pipeline keeps the boundary CEnc-encoded and trims the
-    # short final block to the exact rational count
+    # run through the jitted Pipeline, not eager blk.apply: one compiled
+    # step per chunk, and Pipeline trims the short final block to the
+    # exact rational count
     yield from Pipeline(blk, block_size=chunk_size * 2).stream(iter([data]))
 
 
@@ -181,7 +180,7 @@ def _load_soapy_shim():
     """Import the gated SoapySDR shim (io/soapy.py), which registers its
     drivers on import when the SoapySDR module exists.  Deferred to call
     time: soapy.py imports from this module, and SoapySDR hardware is the
-    exception, not the rule, on TPU hosts."""
+    exception, not the rule, on accelerator hosts."""
     try:
         from . import soapy
         # re-invoke explicitly rather than relying on the first-import side

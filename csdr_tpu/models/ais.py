@@ -6,7 +6,7 @@ same shape of problem at sea: 9600 baud GMSK (BT=0.4), NRZI, HDLC framing,
 CRC-16/X-25, 168-bit position payloads.
 
 Split like models/rds.py: the sample-rate part (GMSK demodulation to bit
-levels) is a TPU Block chain (blocks/gmsk.py — FM discriminator, matched
+levels) is a device Block chain (blocks/gmsk.py — FM discriminator, matched
 filter, strided slicer; shards like any chain); the irregular, data-dependent
 part (flag search, bit de-stuffing, CRC, field extraction) runs host-side on
 the tiny 9.6 kb/s bit stream.

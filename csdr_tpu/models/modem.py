@@ -3,11 +3,11 @@
 The reference instantiates liquid's symtrack with the BPSK modem only
 (LIQUID_MODEM ms=21 — /root/reference/src/ComposableSDR/Liquid.chs:158-166),
 but liquid's surface carries the whole modem family.  This module provides
-the TPU-idiomatic core: gray-mapped unit-energy constellation tables, and
+the block-parallel core: gray-mapped unit-energy constellation tables, and
 decision/LLR kernels shaped as batched table operations —
 
   * hard decision: argmax over Re(y·c̄) − |c|²/2, one (n, M) matmul-like
-    panel op (MXU/VPU) instead of liquid's per-sample nested loops;
+    panel op instead of liquid's per-sample nested loops;
   * soft decision: exact max-log LLRs from the same (n, M) distance panel
     with per-bit masked minima.
 
@@ -108,9 +108,8 @@ def hard_decision(y, ms: str):
     m = _metric_panel(y, ms)
     idx = jnp.argmax(m, axis=-1).astype(jnp.int32)
     C = constellation(ms).astype(np.complex64)
-    # lax.complex, not "re + 1j*im": eager 1j-arithmetic on the TPU backend
-    # creates a complex array outside jit (CLAUDE.md rule 1) and this helper
-    # is documented as usable standalone
+    # lax.complex, not "re + 1j*im": gathers from the real and imaginary
+    # planes directly (this helper is documented as usable standalone)
     sym = jax.lax.complex(jnp_const(np.ascontiguousarray(C.real))[idx],
                           jnp_const(np.ascontiguousarray(C.imag))[idx])
     return idx, sym.astype(jnp.complex64)

@@ -83,7 +83,7 @@ def decode_score(score: np.ndarray, sample_rate: float,
 def pocsag_band_monitor(nch: int, channel_rate: float, baud: float = 1200.0,
                         deviation: float = 4500.0) -> Block:
     """A whole paging band in ONE device graph: PFB split into nch channels,
-    then per channel a Tee of (bit score, envelope magnitude) — the TPU
+    then per channel a Tee of (bit score, envelope magnitude) — the device
     scale-out story (channels are a tensor axis; the reference fans out one
     liquid demod per channel, apps/SoapySDR.hs:224-225).  Input: wideband
     cf32 at nch·channel_rate.  Output: ((nch, n) scores, (nch, n) env);

@@ -4,7 +4,7 @@ subcarrier of an FM-broadcast composite.
 Capability extension beyond the reference: its stereo decoder is "loosely
 based on windytan's wfm-tools" (/root/reference/src/ComposableSDR/Liquid.chs:1004),
 whose companion tool (redsea) decodes RDS; the reference itself stops at
-stereo audio.  This module completes that receive chain the TPU-first way:
+stereo audio.  This module completes that receive chain the block-parallel way:
 
   * the 57 kHz data carrier is the THIRD harmonic of the 19 kHz pilot, so —
     exactly like the stereo decoder's 38 kHz regeneration — it is available

@@ -115,45 +115,10 @@ def channelized_receiver(nch: int, per_channel: Block | None, mix: bool = False,
 
 
 def channelized_fm_receiver(nch: int, kf: float = 0.6, audio_decim: int = 1,
-                            mix: bool = False, backend: str = "xla", **kw) -> Block:
+                            mix: bool = False, **kw) -> Block:
     """The flagship benchmark model (BASELINE.json): nch-channel PFB
-    channelize + per-channel FM demod (+ optional audio decimation).
-
-    backend="pallas" swaps the channelize+demod stages for the fused
-    single-HBM-pass Pallas kernel (ops/pallas/pfb_fused.py) — ~4× faster on
-    chip; the rest of the graph (front end, DC blocker, audio decim, mix)
-    stays XLA."""
-    if backend in ("pallas", "pallas_full", "pallas_wide"):
-        from ..blocks.pallas_blocks import PallasChannelizedFM, FlagshipFused
-
-        if kw.get("agc_threshold_db") is not None:
-            # the fused kernels demodulate inside the kernel; per-channel AGC
-            # would have to sit between channelize and demod — reject loudly
-            # rather than silently dropping the squelch the caller asked for
-            raise ValueError(
-                "agc_threshold_db is not supported with the fused pallas "
-                "backends (AGC must run between channelizer and demod); use "
-                "backend='xla' or compose AGC explicitly")
-        stages: list[Block] = [
-            *front_end(kw.get("sample_rate", 2.56e6), kw.get("offset_hz", 0.0),
-                       kw.get("bandwidth", 0.0)),
-        ]
-        if backend in ("pallas_full", "pallas_wide"):
-            # DC blocker is inside the fused kernel; "pallas_wide" forces the
-            # 128-lane packed layout (flagship_fused_wide), "pallas_full"
-            # lets the block choose per the autotune cache
-            layout = "wide" if backend == "pallas_wide" else "auto"
-            stages.append(FlagshipFused(nch, kf, tileF=kw.get("tileF"),
-                                        layout=layout))
-        else:
-            stages.append(B.dc_blocker())
-            stages.append(PallasChannelizedFM(nch, kf, tileF=kw.get("tileF")))
-        if audio_decim > 1:
-            stages.append(PerChannel(B.fir_decimator(audio_decim), nch))
-        if mix:
-            stages.append(MixChannels())
-        return chain(*stages)
+    channelize + per-channel FM demod (+ optional audio decimation), one
+    XLA graph: dc_blocker → firpfbch_channelizer → PerChannel(fm_demod)."""
     per = B.fm_demodulator(kf) if audio_decim == 1 else chain(
         B.fm_demodulator(kf), B.fir_decimator(audio_decim))
-    kw.pop("tileF", None)  # pallas-only knob; the xla fallback ignores it
     return channelized_receiver(nch, per, mix=mix, **kw)

@@ -6,7 +6,7 @@ half-band 800 Hz of length quadRate/1350, audio FIRs 15 kHz, de-emphasis
 order 2 @ 5 kHz, stereo gain 2, group-delay compensation via Trans.delay.
 
 The reference regenerates the 38 kHz subcarrier with a per-sample PLL
-(fmsPll, Liquid.chs:959-1002).  TPU design: the pilot is already isolated by
+(fmsPll, Liquid.chs:959-1002).  Design: the pilot is already isolated by
 the band-pass, so its *analytic phase is available in closed form* — the
 subcarrier is (pilot/|pilot|)², computed for every sample in parallel (the
 open-loop equivalent of a PLL with the reference's 9 Hz bandwidth; both
@@ -43,7 +43,7 @@ def fms_pll_scan(p_a: jnp.ndarray, state, omega: float, bw: float):
 
     This is the serial lax.scan counterpart of the default closed-form
     regeneration — available for fidelity comparisons (`pll_mode='scan'`);
-    the open-loop path is the TPU-fast default.
+    the open-loop path is the fast default.
     """
     import jax
 

@@ -6,8 +6,8 @@ out — /root/reference/src/ComposableSDR/Liquid.chs:244-282), symSyncC
 symTracker (symtrack_cccf: AGC+sync+EQ, RRC β=0.25, BPSK — Liquid.chs:119-175)
 and the composition fmDemWithSync (Liquid.chs:431-437).
 
-liquid implements these as per-sample feedback PLLs — the worst shape for a
-TPU.  This module uses the *block-parallel* equivalent: the symbol-rate
+liquid implements these as per-sample feedback PLLs — the worst shape for an
+accelerator.  This module uses the *block-parallel* equivalent: the symbol-rate
 timing tone of |x|² (the classical square-law/cyclostationary estimator —
 the open-loop counterpart of the Gardner/ML loop liquid closes per sample)
 is measured once per device block (≥ thousands of symbols, far more averaging
@@ -453,7 +453,7 @@ class _BlockLMSEqualizer(Block):
     """Decision-directed block-NLMS equalizer (symtrack's EQ stage) — the
     'training loop' of this framework.  Symbols are processed in sub-blocks;
     each sub-block is one normalized-LMS gradient step
-    w ← w + μ·Yᴴ(d − Yw̄)/(S·E[|Y|²]) computed as an MXU matmul, so the scan
+    w ← w + μ·Yᴴ(d − Yw̄)/(S·E[|Y|²]) computed as one matmul, so the scan
     carries only the tap vector (sub-block length × taps work stays
     parallel)."""
 

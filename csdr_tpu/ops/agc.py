@@ -1,11 +1,11 @@
-"""Automatic gain control with squelch — fully parallel on TPU.
+"""Automatic gain control with squelch — fully parallel on the device.
 
 Reference behavior (liquid agc_crcf + the Haskell per-sample squelch loop,
 /root/reference/src/ComposableSDR/Liquid.chs:693-717): bandwidth 0.1, signal
 level 1e-3, squelch threshold from the CLI, timeout 1000; every sample whose
 squelch status is not SIGNALHI is zeroed.
 
-TPU design — no per-sample loop:
+Design — no per-sample loop:
   * the log-domain gain recurrence
         ln g[n+1] = (1−α)·ln g[n] − (α/2)·ln(|x[n]|² + ε)
     is a first-order linear recurrence → ops/linrec.py (blocked matmuls);

@@ -1,11 +1,10 @@
 """Device-safe constant materialization.
 
-This environment's TPU backend cannot move complex64 over the host↔device
-wire (see core/runtime.to_host).  Large traced constants are hoisted by jax
-into runtime parameters — so a complex numpy constant (DFT matrix, FFT'd tap
-vector, tone table) closed over by a jitted function becomes a *complex
-upload* and poisons the session.  `jnp_const` ships real/imag planes and
-recombines on device.
+Large traced constants are hoisted by jax into runtime parameters, so a
+complex numpy constant (DFT matrix, FFT'd tap vector, tone table) closed over
+by a jitted function becomes a complex upload.  `jnp_const` ships real/imag
+float32 planes and recombines on device, the same complex-free encoding as
+core/runtime.CEnc (kept until its removal is measured on the GPU).
 """
 
 from __future__ import annotations

@@ -2,12 +2,12 @@
 
 Reference behavior: liquid freqdem (Liquid.chs:303-334), ampmodem with
 mod-index 0.8, DSB, non-suppressed carrier (Liquid.chs:439-469), fskdem
-(Liquid.chs:336-382).  All are embarrassingly parallel on TPU:
+(Liquid.chs:336-382).  All are embarrassingly parallel on the device:
 
   * FM:  y[n] = arg(x[n]·conj(x[n-1])) / (2π·kf)   — one carried sample.
   * AM:  envelope detector matching our ampmod test modulator.
   * FSK: per-symbol tone-energy argmax — a (nsym, k) @ (k, M) complex matmul
-         straight onto the MXU, replacing liquid's per-symbol FFT loop.
+         as one matmul, replacing liquid's per-symbol FFT loop.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ _TWO_PI = 2.0 * np.pi
 
 def freqdem_stream(last: jnp.ndarray, x: jnp.ndarray, kf: float):
     """FM demodulate; ``last`` is the previous block's final sample, shaped
-    (1,) (0-d complex state upsets this TPU backend).  Returns (new_last, y)
+    (1,) (concatenates directly onto the next block).  Returns (new_last, y)
     with len(y) == len(x)."""
     prev = jnp.concatenate([last, x[:-1]])
     d = x * jnp.conj(prev)
@@ -65,12 +65,12 @@ def fsk_tone_matrix(m_bits: int, k: int, bandwidth: float) -> np.ndarray:
 def fskdem_block(x: jnp.ndarray, m_bits: int, k: int, bandwidth: float) -> jnp.ndarray:
     """Demodulate len(x)//k M-FSK symbols: tone correlation + argmax.
 
-    The (nsym, k) @ (k, M) complex matmul runs on the MXU; compare the
+    The (nsym, k) @ (k, M) complex matmul is one matmul; compare the
     reference's one-C-call-per-symbol loop (Liquid.chs:352-358)."""
     n = x.shape[0]
     nsym = n // k
     xs = x[: nsym * k].reshape(nsym, k)
     E = jnp_const(fsk_tone_matrix(m_bits, int(k), float(bandwidth)))
-    corr = xs @ E  # (nsym, M) complex — MXU
+    corr = xs @ E  # (nsym, M) complex matmul
     sym = jnp.argmax(jnp.abs(corr) ** 2, axis=-1)
     return sym.astype(jnp.uint32)

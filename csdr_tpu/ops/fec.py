@@ -1,10 +1,10 @@
-"""Convolutional FEC: encoder + a TPU-native soft-decision Viterbi decoder.
+"""Convolutional FEC: encoder + a block-parallel soft-decision Viterbi decoder.
 
 Capability extension beyond the reference (liquid-dsp bundles libfec's
 scalar-loop Viterbi; the reference never exposes it): the decode trellis
 here is a `lax.scan` over time whose per-step work is fully vectorized over
 the 2^(K-1) states — one add-compare-select across all states per symbol
-in VPU-friendly (S,) panels, decisions stored as a (T, S) plane and traced
+in vectorized (S,) panels, decisions stored as a (T, S) plane and traced
 back with a second scan.  No per-sample Python, no data-dependent shapes;
 jit/vmap/shard-compatible like every other op in `ops/`.
 

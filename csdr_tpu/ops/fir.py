@@ -2,7 +2,7 @@
 
 The reference delegates every FIR to liquid-dsp's per-sample dot products
 (firfilt/firdecim/firinterp execute_block — /root/reference/src/ComposableSDR/
-Liquid.chs:471-501, 868-957).  On TPU we operate on large blocks with explicit
+Liquid.chs:471-501, 868-957).  Here we operate on large blocks with explicit
 carried history ("filter tail") so the streaming semantics are exact:
 
     y[n] = sum_k h[k] · x[n - k]          (causal, liquid firfilt semantics)
@@ -11,8 +11,8 @@ with x indexed over the infinite input stream; the last (K-1) input samples are
 carried between blocks in the state pytree.
 
 Three execution strategies:
-  * "slices":  K statically-unrolled shifted fused multiply-adds (VPU) — best
-               for short filters.
+  * "slices":  K statically-unrolled shifted fused multiply-adds — best for
+               short filters.
   * "fft":     batched overlap-save FFT segments — best for long filters; the
                segment FFTs are batched so XLA tiles them efficiently.
   * "auto":    picks by tap count.
@@ -87,29 +87,17 @@ def _conv_valid_fft(xfull: jnp.ndarray, taps: np.ndarray, seg: int = 16384) -> j
 
 
 def _auto_strategy(taps: np.ndarray) -> str:
-    """Default strategy: short filters run as unrolled VPU FMAs; long REAL
-    filters on TPU run on the banded-Toeplitz MXU kernel (honest slope
-    measurement: 25-120x the
-    XLA fft strategy at >=257 taps across several windows —
-    benchmarks/results/FFTFIR_r02.json); everything else overlap-saves
-    through XLA's fft."""
-    import jax
-
+    """Default strategy: short filters run as unrolled FMAs, long ones
+    overlap-save through XLA's FFT (cuFFT on the GPU) on every platform."""
     nz = int(np.count_nonzero(taps))
-    if nz <= _FFT_MIN_TAPS:
-        return "slices"
-    if (nz > 256 and not np.iscomplexobj(taps)
-            and jax.default_backend() == "tpu"):
-        return "pallas_mxu"
-    return "fft"
+    return "slices" if nz <= _FFT_MIN_TAPS else "fft"
 
 
 def conv_valid(xfull: jnp.ndarray, taps: np.ndarray, strategy: str = "auto") -> jnp.ndarray:
     """Causal valid convolution: input length n + K - 1 → output length n.
 
-    Strategies: "slices" (unrolled VPU FMAs), "fft" (batched overlap-save),
-    "pallas_mxu" (Toeplitz row-block matmuls on the MXU — real taps only,
-    best for long filters on TPU), "auto".
+    Strategies: "slices" (unrolled FMAs), "fft" (batched overlap-save),
+    "auto".
     """
     taps = np.asarray(taps)
     if strategy == "auto":
@@ -118,17 +106,6 @@ def conv_valid(xfull: jnp.ndarray, taps: np.ndarray, strategy: str = "auto") -> 
         return _conv_valid_slices(xfull, taps)
     if strategy == "fft":
         return _conv_valid_fft(xfull, taps)
-    if strategy == "pallas_mxu":
-        from .pallas.fir_kernel import pallas_fir_valid
-
-        if np.iscomplexobj(taps):
-            raise ValueError("pallas_mxu strategy supports real taps only")
-        return pallas_fir_valid(xfull, taps)
-    if strategy in ("pallas_fft", "pallas_fft_interpret"):
-        from .pallas.fftfir import fft_fir_valid
-
-        return fft_fir_valid(xfull, taps,
-                             interpret=strategy.endswith("interpret"))
     raise ValueError(f"unknown strategy {strategy!r}")
 
 

@@ -104,8 +104,8 @@ def onepole_cascade_stream(casc: OnePoleCascade, state, x: jnp.ndarray,
 
 
 def dc_blocker_init(complex_input: bool = True):
-    # NOTE: (1,)-shaped, not 0-d — this environment's TPU backend misbehaves
-    # after executables with 0-d complex parameters/results run
+    # (1,)-shaped, not 0-d: the carry concatenates directly onto the
+    # next block
     xdt = jnp.complex64 if complex_input else jnp.float32
     return (jnp.zeros((1,), dtype=xdt), jnp.zeros((1,), dtype=xdt))
 

@@ -1,13 +1,13 @@
-"""Parallel first-order linear recurrences on TPU.
+"""Parallel first-order linear recurrences on the device.
 
 The reference evaluates every IIR filter / AGC / DC-blocker as a per-sample C
 loop inside liquid-dsp (e.g. iirfilt execute_block, agc_crcf per-sample loop —
 /root/reference/src/ComposableSDR/Liquid.chs:563-705).  A per-sample loop is
-the worst possible TPU program, so this module solves the recurrence
+the worst possible accelerator program, so this module solves the recurrence
 
     y[n] = a · y[n-1] + b[n],        y[-1] = y0
 
-*in parallel* with a blocked algorithm that maps onto the MXU:
+*in parallel* with a blocked algorithm that maps onto matrix multiplies:
 
   1. reshape the forcing sequence into (B, L) blocks,
   2. within-block solve with zero carry  w = b @ Tᵀ, where T is the static
@@ -33,6 +33,8 @@ from .constants import jnp_const
 
 __all__ = ["linrec", "linrec_ref"]
 
+# Chunk length of the blocked scan.  128 was the first target's matrix-unit size;
+# it is untuned on the H100.
 _DEF_L = 128
 
 
@@ -83,7 +85,7 @@ def linrec(b: jax.Array, a: complex | float, y0: jax.Array, block: int = _DEF_L)
     T = jnp_const(T_np)
     apow = jnp_const(apow_np).astype(dt)
 
-    # within-block solution with zero carry (MXU matmul)
+    # within-block solution with zero carry (one matmul)
     if out_complex and not a_complex:
         w_re = jnp.real(bb) @ T.T
         w_im = jnp.imag(bb) @ T.T

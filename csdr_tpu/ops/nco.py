@@ -5,7 +5,7 @@ channelizer pre-shift (/root/reference/src/ComposableSDR/Liquid.chs:744-866).
 mix_down multiplies by e^{-jθ[n]}, mix_up by e^{+jθ[n]}, θ stepping by ω per
 sample with the phase carried across blocks.
 
-TPU design: the per-sample phase ramp mod 2π is precomputed *in float64 numpy*
+Design: the per-sample phase ramp mod 2π is precomputed *in float64 numpy*
 as a static constant (ω and the block length are static config), so a 2^20
 sample block suffers no float32 phase-accumulation error; only the scalar
 carried phase is runtime state.

@@ -6,12 +6,12 @@ per C call with a Haskell transpose loop around it
 preceded by an NCO pre-shift of −0.5·(nch−1)/nch·2π so the nch output channels
 tile the spectrum in increasing frequency order (Liquid.chs:817).
 
-TPU design: the whole block of F frames is processed at once —
+Design: the whole block of F frames is processed at once —
 
   1. polyphase split: v[i, p] = x[i·nch − p]  (one reshape + reverse),
   2. per-branch FIR along the frame axis (L ≈ 14 taps, statically unrolled
      fused multiply-adds on (F, nch) panels),
-  3. DFT across branches as an (F, nch) @ (nch, nch) complex matmul → MXU.
+  3. DFT across branches as an (F, nch) @ (nch, nch) complex matmul.
 
 Channel k (after the standard pre-shift) is centered at
 2π·(k − (nch−1)/2)/nch, i.e. channels run from the bottom of the band to the
@@ -87,7 +87,7 @@ def pfb_analyze_stream(state, x: jnp.ndarray, nch: int, m: int = 7, as_db: float
         u = term if u is None else u + term
 
     W = jnp_const(pfb_dft_matrix(nch))
-    d = u @ W  # (F, nch) complex matmul — MXU
+    d = u @ W  # (F, nch) complex matmul
 
     new_state = (xfull[F * nch :], vfull[F:])
     return new_state, d.T  # (nch, F)

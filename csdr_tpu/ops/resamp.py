@@ -6,7 +6,7 @@ Reference behavior: liquid msresamp_crcf (arbitrary multi-stage resampler,
 decimators with an arbitrary (fractional-phase) final stage whose output count
 is data-dependent — poison for XLA's static shapes.
 
-TPU design: the requested rate is approximated by a rational P/Q (continued
+Design: the requested rate is approximated by a rational P/Q (continued
 fractions, |error| < 1e-6 relative for any denominator ≤ 1024 — inaudible even
 over an hour-long stream), making the output count per block *exact and
 static*: a block of n = k·Q inputs yields k·P outputs.  The rational stage is

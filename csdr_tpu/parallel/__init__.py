@@ -1,5 +1,4 @@
 from .channelized import ShardedChannelizedFM, make_mesh
-from .flagship import ShardedFlagship
 from .generic import ShardedChain
 from .mesh import init_distributed, build_mesh
 from .runner import ShardedPipeline

@@ -1,13 +1,13 @@
 """Multi-chip sharded channelized receiver step.
 
-The reference is strictly single-threaded (SURVEY.md §2c); the TPU build's
+The reference is strictly single-threaded (SURVEY.md §2c); this build's
 north star (BASELINE.json) shards the 64-channel channelize+demod pipeline
 over a device mesh:
 
   * axis 'time': the input block is split into contiguous time segments, one
     per device (the sequence-parallel/data-parallel axis).  Every stateful
     stage needs its left neighbor's tail — exchanged with ONE
-    `lax.ppermute` halo per stage, riding ICI.
+    `lax.ppermute` halo per stage (NCCL over NVLink between cards).
   * axis 'ch':  the DFT across PFB branches is a matmul against W (nch×nch);
     each device multiplies only its column shard → channels end up sharded
     (the tensor-parallel axis), and the per-channel demod/audio chain runs on
@@ -82,9 +82,6 @@ class ShardedChannelizedFM:
     dc_alpha: float = 0.0005
     agc_threshold_db: float | None = None  # per-channel AGC + squelch
     agc_signal_level: float = 1e-3
-    use_fused: bool = False  # run PFB+DFT+demod as the fused Pallas kernel
-    tileF: int = 512         # fused-kernel tile (frames); F_local must divide
-    interpret: bool = False  # pallas interpret mode (CPU tests)
 
     def __post_init__(self):
         self.dt = self.mesh.shape["time"]
@@ -95,13 +92,7 @@ class ShardedChannelizedFM:
         assert self.nloc % self.nch == 0
         self.nch_loc = self.nch // self.dc
         self.L = 2 * self.m
-        # fused kernel needs one extra history frame (the demod's d[t−1])
-        self.pfb_halo = (self.L * self.nch + self.nch - 1 if self.use_fused
-                         else self.L * self.nch - 1)
-        if self.use_fused:
-            f_loc = self.nloc // self.nch
-            self.tileF = min(self.tileF, f_loc)
-            assert f_loc % self.tileF == 0, (f_loc, self.tileF)
+        self.pfb_halo = self.L * self.nch - 1
         self.fir_taps = (firdecim_kaiser(self.audio_decim, 10, 60.0).astype(np.float32)
                          if self.audio_decim > 1 else None)
         # single-ppermute halo exchange requires each stage's halo to fit in
@@ -128,7 +119,7 @@ class ShardedChannelizedFM:
 
     # ---- state ------------------------------------------------------------
     def init(self):
-        # jitted: eager complex creation fails on this backend
+        # one jitted program creates and encodes the initial state on device
         return jax.jit(lambda: encode_tree(self._raw_init()))()
 
     def _raw_init(self):
@@ -207,8 +198,6 @@ class ShardedChannelizedFM:
         new_phase = jnp.mod(state["phase"] + delta * np.float32(self.dt), _TWO_PI)
 
         # ---- PFB polyphase + sharded DFT matmul ----
-        if self.use_fused:
-            return self._fused_tail(state, x, xs, ti, ci, new_dc_x, new_dc_y, new_phase)
         halo = self._left_halo(xs, state["pfb_tail"], self.pfb_halo)
         xfull = jnp.concatenate([halo[-(self.nch - 1):] if self.nch > 1 else halo[:0], xs])
         F = nloc // self.nch
@@ -330,55 +319,6 @@ class ShardedChannelizedFM:
         return y, self._from_last_device_time_only(lng_sh), \
             self._from_last_device_time_only(ab_sh)
 
-    def _fused_tail(self, state, x, xs, ti, ci, new_dc_x, new_dc_y, new_phase):
-        """PFB+DFT+demod via the fused Pallas kernel on the local shard,
-        channel-sharded through a DFT column slice."""
-        from ..ops.pallas.pfb_fused import pfb_fm_fused
-
-        nch, L, nloc = self.nch, self.L, self.nloc
-        F = nloc // nch
-        halo = self._left_halo(xs, state["pfb_tail"], self.pfb_halo)  # L·nch+nch−1
-        xfull2 = jnp.concatenate([halo[L * nch:], xs])        # (nch−1) + nloc
-        v = xfull2[: F * nch].reshape(F, nch)[:, ::-1]
-        vprev = halo[: L * nch].reshape(L, nch)[:, ::-1]      # L frames incl demod prev
-        vfull = jnp.concatenate([vprev, v], axis=0)           # (F + L, nch)
-
-        taps = jnp.asarray(pfb_ops.pfb_taps(nch, self.m, self.as_db))
-        W = pfb_ops.pfb_dft_matrix(nch)
-        wre_full = jnp.asarray(np.ascontiguousarray(W.real).astype(np.float32))
-        wim_full = jnp.asarray(np.ascontiguousarray(W.imag).astype(np.float32))
-        wre = jax.lax.dynamic_slice_in_dim(wre_full, ci * self.nch_loc, self.nch_loc, 1)
-        wim = jax.lax.dynamic_slice_in_dim(wim_full, ci * self.nch_loc, self.nch_loc, 1)
-
-        if self.agc_threshold_db is not None:
-            # channelize-only kernel → distributed per-channel AGC → demod
-            from ..ops.pallas.pfb_fused import pfb_channelize_fused
-
-            dre, dim = pfb_channelize_fused(
-                jnp.real(vfull[1:]), jnp.imag(vfull[1:]), taps, wre, wim,
-                nch=nch, L=L, tileF=self.tileF, interpret=self.interpret)
-            d = jax.lax.complex(dre, dim).T  # (nch_loc, F)
-            d, new_agc_lng, new_agc_above = self._agc(state, d, ti, ci)
-            audio, new_demod_last = self._demod_with_prev(state, d, ti, ci)
-        else:
-            audio = pfb_fm_fused(jnp.real(vfull), jnp.imag(vfull), taps, wre, wim,
-                                 nch=nch, L=L, tileF=self.tileF, kf=self.kf,
-                                 interpret=self.interpret).T  # (nch_loc, F)
-            new_agc_lng = state["agc_lng"]
-            new_agc_above = state["agc_above"]
-            new_demod_last = state["demod_last"]
-        new_pfb_tail = self._from_last_device(xs[-self.pfb_halo:])
-
-        audio, new_fir_tail = self._audio_decim(state, audio, ti, ci)
-
-        new_state = dict(
-            dc_x=new_dc_x, dc_y=new_dc_y, phase=new_phase,
-            pfb_tail=new_pfb_tail, demod_last=new_demod_last,
-            fir_tail=new_fir_tail, agc_lng=new_agc_lng,
-            agc_above=new_agc_above,
-        )
-        return new_state, audio
-
     def _from_last_device_time_only(self, val):
         ti = jax.lax.axis_index("time")
         is_bool = val.dtype == jnp.bool_
@@ -388,5 +328,3 @@ class ShardedChannelizedFM:
         s = jax.lax.psum(masked, "time")
         # already identical across 'ch' (all_gather'ed) — divide not needed
         return s > 0 if is_bool else s
-
-

@@ -14,8 +14,8 @@ channel-axis divisibility), and wraps its ``shard_apply`` in one
   * output: P(time) for 1-D streams, P(ch, time) for channelized (nch, F)
     panels — the layout is derived by propagating each block's
     ``shard_layout`` through the graph;
-  * the whole jit boundary is complex-free (core/runtime.CEnc) per
-    docs/TPU_BACKEND_NOTES.md.
+  * the whole jit boundary is complex-free (core/runtime.CEnc), like the
+    serial Pipeline.
 
 The reference's defining property — any composition of Pipes works
 (/root/reference/src/ComposableSDR/Types.hs:93-103) — holds here one level
@@ -64,7 +64,7 @@ class ShardedChain:
         self.nloc = block_size // self.dt
         self.rate: Fraction = block.rate
 
-        # static validation + final layout (no jnp ops — TPU-backend safe)
+        # static validation + final layout (no jnp ops)
         vctx = self._make_ctx()
         self.nloc_out = block.shard_validate(self.nloc, vctx)
         self.out_layout = out_layout if out_layout is not None \

@@ -2,7 +2,7 @@
 
 The reference is single-process (SURVEY.md §2c).  Multi-host runs here use
 jax.distributed + a Mesh('time', 'ch') spanning all hosts: time segments ride
-the outer axis (host-to-host via ICI on a real slice), channel shards the
+the outer axis (host-to-host over the interconnect), channel shards the
 inner axis.  On a single host this degenerates gracefully.
 """
 
@@ -33,7 +33,7 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
         env = os.environ.get("JAX_PROCESS_ID")
         process_id = int(env) if env is not None else None
     # leave unset values as None: jax.distributed auto-detects them from the
-    # cluster environment (TPU pod metadata, etc.) — hardcoding 1/0 would
+    # cluster environment (scheduler metadata, etc.) — hardcoding 1/0 would
     # make every rank claim world-size 1 rank 0 and wedge the join
     jax.distributed.initialize(
         coordinator_address=coordinator,

@@ -1,4 +1,4 @@
-"""FIR filter design (numpy, float64) — TPU-native re-derivation of the designs
+"""FIR filter design (numpy, float64) — a re-derivation of the designs
 the reference obtains from liquid-dsp.
 
 The reference wraps liquid-dsp design routines behind FFI (see

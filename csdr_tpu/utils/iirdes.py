@@ -1,5 +1,5 @@
 """IIR filter design — Butterworth prototypes as second-order sections, and the
-decomposition into complex first-order sections that powers the TPU-parallel
+decomposition into complex first-order sections that powers the parallel
 recurrence engine (ops/linrec.py).
 
 The reference obtains these from liquid-dsp's
@@ -8,7 +8,7 @@ The reference obtains these from liquid-dsp's
 `iirfilt_crcf_create_dc_blocker(alpha)` (Liquid.chs:577).  We design with
 scipy (float64) and restructure for parallel evaluation:
 
-A real SOS cascade is evaluated on TPU not as a per-sample loop but as a
+A real SOS cascade is evaluated on the device not as a per-sample loop but as a
 cascade of *complex one-pole* recurrences (partial fractions of each biquad),
 each solved in parallel with blocked lower-triangular matmuls — see
 ops/linrec.py.

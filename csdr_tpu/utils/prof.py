@@ -2,7 +2,7 @@
 
 The reference's observability is stdout prints of each block's config
 (SURVEY.md §5).  Here: per-stage throughput counters, a stream-level
-samples/s meter, and a jax.profiler trace context for TPU timeline capture.
+samples/s meter, and a jax.profiler trace context for device timeline capture.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def stage_table(stats: list["StageStat"]) -> str:
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a jax.profiler trace (TensorBoard-compatible) around a code
-    region — TPU timeline, HLO, memory."""
+    region — device timeline, HLO, memory."""
     jax.profiler.start_trace(logdir)
     try:
         yield

@@ -2,7 +2,7 @@
 
 The reference has no modulators or tests (SURVEY.md §4); these are the golden
 oracles our test suite uses: generate a known message → modulate (numpy,
-float64) → run the TPU demod pipeline → require SNR above spec.
+float64) → run the device demod pipeline → require SNR above spec.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ __all__ = [
     "fsk_mod",
     "snr_db",
     "awgn",
+    "fm_channel_capture",
+    "to_cu8",
 ]
 
 _TWO_PI = 2.0 * np.pi
@@ -105,3 +107,40 @@ def snr_db(ref: np.ndarray, test: np.ndarray, skip: int = 0, align: bool = True,
     p_sig = np.mean(np.abs(ref) ** 2) + 1e-30
     p_err = np.mean(np.abs(err) ** 2) + 1e-30
     return float(10.0 * np.log10(p_sig / p_err))
+
+
+def fm_channel_capture(n: int, nch: int, n_signal: int = 8, seed: int = 0,
+                       kf: float = 0.6, amp: float = 0.1,
+                       noise: float = 0.01) -> tuple[np.ndarray, list[int]]:
+    """Seeded wideband capture for an nch-channel PFB + FM demod flow.
+
+    FM carriers sit at the centers of ``min(n_signal, nch)`` evenly spread
+    channels (channel k at (k − (nch−1)/2)/nch cycles/sample), each
+    modulated by its own tone at a channel-rate deviation of about 0.1
+    (kf·amplitude), under complex white noise of rms ``noise``.  Returns
+    (iq complex64 (n,), sorted signal channel indices)."""
+    rng = np.random.default_rng(seed)
+    k_sig = sorted({int(k) for k in np.linspace(0, nch - 1, min(n_signal, nch))
+                    .round()})
+    t = np.arange(n, dtype=np.float64)
+    x = noise / np.sqrt(2.0) * (rng.normal(size=n) + 1j * rng.normal(size=n))
+    for k in k_sig:
+        fc = (k - (nch - 1) / 2.0) / nch
+        fm = rng.uniform(0.005, 0.03) / nch        # tone, channel-rate 0.005-0.03
+        dev = rng.uniform(0.1, 0.2) / kf           # message amplitude
+        ph0 = rng.uniform(0.0, 2.0 * np.pi)
+        # phase = 2π·fc·t + 2π·kf/nch·Σ m, with m = dev·sin(2π·fm·t)
+        integ = dev * (1.0 - np.cos(_TWO_PI * fm * t)) / (_TWO_PI * fm)
+        ph = np.mod(_TWO_PI * fc * t + _TWO_PI * kf / nch * integ + ph0,
+                    _TWO_PI)
+        x += amp * np.exp(1j * ph)
+    return x.astype(np.complex64), k_sig
+
+
+def to_cu8(iq: np.ndarray) -> np.ndarray:
+    """complex IQ in [−1, 1] → interleaved rtl_sdr uint8 ('cu8'),
+    round(v·127.5 + 127.5) clipped to 0..255."""
+    iq = np.asarray(iq)
+    f = np.empty(2 * len(iq), np.float64)
+    f[0::2], f[1::2] = iq.real, iq.imag
+    return np.clip(np.round(f * 127.5 + 127.5), 0, 255).astype(np.uint8)

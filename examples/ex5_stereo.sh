@@ -14,7 +14,7 @@ t = np.arange(n)/quad
 L = 0.6*np.sin(2*np.pi*500.0*t); R = 0.6*np.sin(2*np.pi*1800.0*t)
 pilot_ph = 2*np.pi*19000*t
 mpx = 0.45*(L+R) + 0.1*np.cos(pilot_ph) + 0.45*(L-R)*np.cos(2*pilot_ph)
-ps, rt = "CSDR-TPU", "TPU NATIVE RADIO"
+ps, rt = "CSDR-JAX", "JAX NATIVE RADIO"
 groups = [rds.make_group_0a(0x52D4, s, ps[2*s:2*s+2]) for s in range(4)]
 groups += [rds.make_group_2a(0x52D4, s, rt[4*s:4*s+4]) for s in range(4)]
 tx = rds.bits_from_groups(groups)

@@ -1,7 +1,7 @@
 #!/bin/sh
 # Network loop: one process serves a capture over the rtl_tcp protocol, a
 # second consumes it with --devname rtl_tcp and demodulates — the loop a
-# radio host + TPU pod would run (the reference needs local USB hardware).
+# radio host + accelerator server would run (the reference needs local USB hardware).
 set -e
 cd "$(dirname "$0")/.."
 python - <<'PYEOF'

@@ -2,7 +2,7 @@
 //
 // The reference's native layer is SoapySDR's C++ stream engine (MTU-sized
 // reads, 30 driver buffers, 1 s timeout — /root/reference/src/ComposableSDR/
-// Source.chs:193-233) and libsndfile.  This library provides the TPU-side
+// Source.chs:193-233) and libsndfile.  This library provides the host-side
 // equivalent: a threaded, double(+)-buffered file reader that keeps the
 // host→device feed saturated while the device computes, and a threaded
 // writer that decouples sink disk latency from the stream loop.

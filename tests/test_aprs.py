@@ -10,13 +10,13 @@ FS = 48000.0  # 40 samples/bit
 
 
 def test_ax25_address_roundtrip():
-    frame = aprs.make_ax25_ui("N0CALL-7", "APRS", ">Hello TPU radio!",
+    frame = aprs.make_ax25_ui("N0CALL-7", "APRS", ">Hello SDR radio!",
                               via=("WIDE1-1", "WIDE2-2"))
     msg = aprs.parse_ax25(frame)
     assert msg["src"] == "N0CALL-7" and msg["dst"] == "APRS"
     assert msg["via"] == ["WIDE1-1", "WIDE2-2"]
     assert msg["control"] == 0x03 and msg["pid"] == 0xF0
-    assert msg["info"] == ">Hello TPU radio!"
+    assert msg["info"] == ">Hello SDR radio!"
 
 
 def test_hdlc_layer_roundtrip_and_stuffing():

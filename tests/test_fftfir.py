@@ -1,9 +1,7 @@
-"""Overlap-save matmul-FFT Pallas kernel vs scipy float64 convolution.
-
-Covers the cases the banded-Toeplitz kernel does not: complex taps (stereo
-pilot band-pass / firFilterCKaiser, Liquid.chs:868-916) and very long
-filters.  Runs in Pallas interpret mode on CPU; the on-chip benchmark lives
-in benchmarks/bench_fftfir.py.
+"""conv_valid's "fft" overlap-save (XLA's FFT: cuFFT on the GPU) vs the
+scipy float64 convolution: real and complex taps (stereo pilot band-pass /
+firFilterCKaiser, Liquid.chs:868-916), very long filters, and streaming
+through fir_stream with the "auto" choice.
 """
 
 import numpy as np
@@ -13,7 +11,6 @@ import scipy.signal as sig
 import jax.numpy as jnp
 
 from csdr_tpu.ops.fir import conv_valid, fir_stream
-from csdr_tpu.ops.pallas.fftfir import fft_fir_valid
 from csdr_tpu.utils import firdes
 
 
@@ -29,7 +26,7 @@ def test_real_taps_real_input(K, n):
     rng = np.random.default_rng(0)
     taps = rng.normal(size=K) / np.sqrt(K)
     xfull = rng.normal(size=n + K - 1).astype(np.float32)
-    got = np.asarray(fft_fir_valid(jnp.asarray(xfull), taps, interpret=True))
+    got = np.asarray(conv_valid(jnp.asarray(xfull), taps, strategy="fft"))
     want = oracle(xfull, taps).real
     scale = np.max(np.abs(want)) + 1e-12
     assert got.shape == want.shape
@@ -45,7 +42,7 @@ def test_complex_taps_complex_input(K):
     n = 30_000
     xfull = (rng.normal(size=n + K - 1)
              + 1j * rng.normal(size=n + K - 1)).astype(np.complex64)
-    got = np.asarray(fft_fir_valid(jnp.asarray(xfull), taps, interpret=True))
+    got = np.asarray(conv_valid(jnp.asarray(xfull), taps, strategy="fft"))
     want = oracle(xfull, taps)
     scale = np.max(np.abs(want)) + 1e-12
     assert np.max(np.abs(got - want)) / scale < 2e-4
@@ -61,7 +58,7 @@ def test_streaming_through_fir_stream():
     outs = []
     for i in range(0, len(x), 16384):
         hist, y = fir_stream(taps, hist, jnp.asarray(x[i:i + 16384]),
-                             strategy="pallas_fft_interpret")
+                             strategy="auto")
         outs.append(np.asarray(y))
     got = np.concatenate(outs)
     want = sig.lfilter(taps, 1.0, x.astype(np.float64))
@@ -77,20 +74,6 @@ def test_matches_xla_fft_strategy():
              + 1j * rng.normal(size=20_000 + K - 1)).astype(np.complex64)
     a = np.asarray(conv_valid(jnp.asarray(xfull), taps, strategy="fft"))
     b = np.asarray(conv_valid(jnp.asarray(xfull), taps,
-                              strategy="pallas_fft_interpret"))
+                              strategy="auto"))
     scale = np.max(np.abs(a)) + 1e-12
     assert np.max(np.abs(a - b)) / scale < 3e-4
-
-
-def test_too_long_taps_rejected():
-    with pytest.raises(ValueError, match="shorter than"):
-        fft_fir_valid(jnp.zeros(20000, jnp.float32), np.zeros(16384),
-                      interpret=True)
-
-
-def test_fftfir_input_shorter_than_taps_raises():
-    import pytest
-
-    taps = np.ones(64, np.float32)
-    with pytest.raises(ValueError, match="longer than taps"):
-        fft_fir_valid(jnp.zeros(63, jnp.float32), taps)

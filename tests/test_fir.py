@@ -90,8 +90,8 @@ def test_fir_interp_stream():
 
 
 def test_auto_strategy_routing(monkeypatch):
-    """auto: short -> slices; long real on TPU -> banded-Toeplitz MXU kernel;
-    long complex or non-TPU -> XLA fft overlap-save."""
+    """auto: short -> slices; long (real or complex) -> XLA fft overlap-save
+    on every platform."""
     import jax
     from csdr_tpu.ops.fir import _auto_strategy
 
@@ -100,8 +100,8 @@ def test_auto_strategy_routing(monkeypatch):
     long_cplx = np.ones(401) + 1j
 
     assert _auto_strategy(short) == "slices"
-    assert _auto_strategy(long_real) == "fft"  # cpu backend in tests
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert _auto_strategy(long_real) == "pallas_mxu"
-    assert _auto_strategy(long_cplx) == "fft"
-    assert _auto_strategy(np.ones(128)) == "fft"  # 64 < nz <= 256 stays fft
+    for platform in ("cpu", "gpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        assert _auto_strategy(long_real) == "fft"
+        assert _auto_strategy(long_cplx) == "fft"
+        assert _auto_strategy(np.ones(128)) == "fft"

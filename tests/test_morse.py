@@ -42,11 +42,11 @@ def test_morse_decode_through_envelope_chain(wpm):
 def test_morse_decode_with_frequency_offset():
     """A mistuned carrier inside the filter bandwidth still decodes (the
     envelope is magnitude — phase/frequency drop out)."""
-    iq = keyed_carrier("TPU SDR 73", wpm=20.0, freq_off=30.0)
+    iq = keyed_carrier("JAX SDR 73", wpm=20.0, freq_off=30.0)
     snk = cs.CollectSink()
     cs.Pipeline(morse.cw_envelope(100.0 / FS), block_size=1 << 14).run(
         iter([iq]), snk)
-    assert morse.decode_envelope(snk.concat()) == "TPU SDR 73"
+    assert morse.decode_envelope(snk.concat()) == "JAX SDR 73"
 
 
 def test_morse_edge_cases():

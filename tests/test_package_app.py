@@ -63,14 +63,15 @@ def test_self_contained_bundle_runs_under_env_i(tmp_path):
     (Cabal2AppImage.hs:119-156): the bundle ships interpreter + ldd closure +
     stdlib + pruned site-packages, and its launcher runs a real cf32->WAV
     demod flow under `env -i` (only PATH for the launcher's readlink/dirname
-    and JAX_PLATFORMS=cpu to keep the smoke test off the TPU).  libtpu
-    (637 MB) is excluded from the smoke bundle via runtime_deps; everything
-    else is the production self-contained path."""
+    and JAX_PLATFORMS=cpu to keep the smoke test on the CPU).  The CUDA
+    plugin packages (gigabytes of libraries) are excluded from the smoke
+    bundle via runtime_deps; everything else is the production
+    self-contained path."""
     import numpy as np
 
-    from csdr_tpu.apps.package_app import _RUNTIME_DEPS
+    from csdr_tpu.apps.package_app import _CUDA_DEPS, _RUNTIME_DEPS
 
-    deps = tuple(d for d in _RUNTIME_DEPS if d != "libtpu")
+    deps = tuple(d for d in _RUNTIME_DEPS if d not in _CUDA_DEPS)
     out = build_bundle(str(tmp_path / "dist"), self_contained=True,
                        runtime_deps=deps)
     launcher = os.path.join(out, "csdr")

@@ -31,11 +31,11 @@ def test_bch_correction():
 
 
 def test_bit_layer_roundtrip_alpha_numeric_polarity():
-    lv = pg.make_transmission(1234568, "HELLO TPU-1!")
+    lv = pg.make_transmission(1234568, "HELLO SDR-1!")
     for stream in (lv, 1 - lv):  # both on-air polarities
         msgs = pg.decode_bits(stream)
         assert msgs == [{"ric": 1234568, "fn": 3, "kind": "alpha",
-                         "text": "HELLO TPU-1!"}]
+                         "text": "HELLO SDR-1!"}]
     msgs = pg.decode_bits(pg.make_transmission(99, "0123*U-()9"))
     assert msgs == [{"ric": 99, "fn": 0, "kind": "numeric",
                      "text": "0123*U-()9"}]
@@ -70,13 +70,13 @@ def _iq(lv, seed=1, noise=0.05):
 def test_pocsag_full_fsk_chain():
     """Inverted-polarity FSK at 32 samples/bit through the ACTUAL device
     chain (FM discriminator → one-bit integrator), streamed in blocks."""
-    lv = pg.make_transmission(1234568, "TPU PAGER OK")
+    lv = pg.make_transmission(1234568, "SDR PAGER OK")
     iq = _iq(lv)
     rx = cs.CollectSink()
     cs.Pipeline(pg.pocsag_receiver(FS), block_size=1 << 14).run(iter([iq]), rx)
     msgs = pg.decode_score(np.asarray(rx.concat()), FS)
     assert msgs == [{"ric": 1234568, "fn": 3, "kind": "alpha",
-                     "text": "TPU PAGER OK"}]
+                     "text": "SDR PAGER OK"}]
 
 
 def test_pocsag_receiver_validates_rate():

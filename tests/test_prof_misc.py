@@ -1,4 +1,4 @@
-"""Profiling utilities + FlagshipFused inside the Pipeline runtime."""
+"""Profiling utilities + the XLA flagship graph under a profiled Pipeline."""
 
 import numpy as np
 
@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import csdr_tpu as cs
 from csdr_tpu.utils.prof import Meter, timed_steps
 from csdr_tpu.core.runtime import Pipeline
-from csdr_tpu.blocks.pallas_blocks import FlagshipFused
+from csdr_tpu.models.receivers import channelized_fm_receiver
 
 
 def test_meter():
@@ -31,24 +31,31 @@ def test_timed_steps():
 
 
 def test_flagship_fused_in_pipeline():
-    nch, tileF = 8, 64
-    blk = FlagshipFused(nch, kf=0.6, tileF=tileF, interpret=True)
-    assert blk.granule == nch * tileF
-    pipe = Pipeline(blk, block_size=nch * tileF * 2, donate=False)
-    n = nch * tileF * 4
+    """The flagship graph (dc_blocker → PFB → per-channel FM demod) under
+    Pipeline(profile=True): one budget row per stage, and the same output
+    as the fused single-jit step."""
+    nch, frames = 8, 64
+    blk = channelized_fm_receiver(nch, kf=0.6)
+    assert blk.granule == nch
+    n = nch * frames * 4
     rng = np.random.default_rng(0)
     iq = (0.1 * (rng.normal(size=n) + 1j * rng.normal(size=n))).astype(np.complex64)
+
+    pipe = Pipeline(blk, block_size=nch * frames * 2, donate=False,
+                    profile=True)
     sink = cs.CollectSink()
     total = pipe.run(iter([iq]), sink)
     assert total == n // nch
     out = sink.concat()
     assert out.shape == (nch, n // nch)
+    assert [s.name for s in pipe.stage_stats] == [
+        "dc_blocker", f"pfb_channelizer({nch})", pipe.stage_stats[2].name]
+    assert all(s.calls == 2 for s in pipe.stage_stats)
+    assert "dc_blocker" in pipe.profile_report()
 
-    # equivalence with the XLA graph through the same runtime
-    g = cs.chain(cs.dc_blocker(), cs.firpfbch_channelizer(nch),
-                 cs.PerChannel(cs.fm_demodulator(0.6), nch))
-    p2 = Pipeline(g, block_size=nch * tileF * 2, donate=False)
+    # equivalence with the unprofiled (single-jit) step
+    p2 = Pipeline(blk, block_size=nch * frames * 2, donate=False)
     s2 = cs.CollectSink()
     p2.run(iter([iq]), s2)
     want = s2.concat()
-    assert np.max(np.abs(np.asarray(out)[:, 1:] - np.asarray(want)[:, 1:])) < 5e-4
+    assert np.max(np.abs(np.asarray(out) - np.asarray(want))) < 5e-4

@@ -10,7 +10,7 @@ import csdr_tpu as cs
 from csdr_tpu.models import rtty
 
 FS = 8000.0  # 176 samples/bit at 45.45 Bd (22 ms bits)
-MSG = "CQ CQ DE TPU1 TPU1 599 73"
+MSG = "CQ CQ DE SDR1 SDR1 599 73"
 
 
 def test_ita2_codec_roundtrip_with_shifts():

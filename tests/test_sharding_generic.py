@@ -3,7 +3,7 @@ single-device Pipeline — the 'any composition shards' property.
 
 The reference's Category instance makes any Pipe composition work
 (/root/reference/src/ComposableSDR/Types.hs:93-103); these tests assert the
-TPU analogue: arbitrary Block chains (FIR tails, distributed IIR/AGC/DC
+sharded analogue: arbitrary Block chains (FIR tails, distributed IIR/AGC/DC
 recurrences, indexed NCO phase, channelizer fan-out with channel sharding,
 Tee/Delay/Mix combinators) produce the same stream as single-device execution
 on multiple mesh shapes, including streaming state continuity across blocks.

@@ -72,12 +72,11 @@ def main():
     from csdr_tpu import blocks, io as cio, models
     from csdr_tpu.models import adsb, ais, aprs, apt, beacon, sstv, wefax, hdlc, modem, morse, pocsag, receivers, rds, rtty, stereo, symsync
     from csdr_tpu import parallel
-    from csdr_tpu.parallel import generic as pgeneric, channelized, flagship, mesh, runner
+    from csdr_tpu.parallel import generic as pgeneric, channelized, mesh, runner
     from csdr_tpu.core import block as cblock, runtime, checkpoint, sharding
-    from csdr_tpu.utils import firdes, iirdes, testsig, prof, autotune
+    from csdr_tpu.utils import firdes, iirdes, testsig, prof, reference, compile_cache
     from csdr_tpu.io import rtl_tcp, soapy, sources, sinks
     from csdr_tpu.ops import fec, fir as ops_fir
-    from csdr_tpu.ops.pallas import fftfir
 
     out = ["# API reference (auto-generated — `python tools/gen_api.py`)\n"]
 
@@ -118,19 +117,19 @@ def main():
     section("models.beacon (coded 4-FSK weak-signal beacon)", beacon, None, out)
     section("models.wefax (HF radiofax chart receiver)", wefax, None, out)
     section("parallel (multi-chip runtimes)", parallel, None, out)
-    section("parallel.flagship (production kernel under the mesh)", flagship, None, out)
     section("parallel.generic (any-chain sharding)", pgeneric, None, out)
     section("core.sharding (per-block sharding protocol)", sharding, None, out)
     section("core.checkpoint", checkpoint, None, out)
     section("core.runtime (boundary codec)", runtime,
             ["CEnc", "resume_pipeline"], out)
     section("ops.fec (convolutional FEC / Viterbi)", fec, None, out)
-    section("ops.pallas.fftfir (overlap-save FFT FIR)", fftfir, None, out)
+    section("ops.fir (streaming FIR engines)", ops_fir, None, out)
     section("utils.firdes", firdes, None, out)
     section("utils.iirdes", iirdes, None, out)
     section("utils.testsig", testsig, None, out)
     section("utils.prof", prof, None, out)
-    section("utils.autotune", autotune, None, out)
+    section("utils.reference (float64 reference of the flagship chain)", reference, None, out)
+    section("utils.compile_cache", compile_cache, None, out)
 
     path = os.path.join(os.path.dirname(__file__), "..", "docs", "API.md")
     with open(path, "w") as f:
